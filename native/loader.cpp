@@ -1,6 +1,6 @@
-// vslam_loader: native frame-ingest runtime for the TPU SLAM pipeline.
+// vslam_loader: native frame-ingest runtime for the SLAM pipeline.
 //
-// TPU-native replacement for the reference's data path (cv2.imread /
+// Native replacement for the reference's data path (cv2.imread /
 // cv2.VideoCapture in visual_slam/source.py:60,85,125,205): a C++ decode +
 // prefetch engine so the Python shell never blocks on image IO while the
 // device is tracking. Components:

@@ -1,4 +1,4 @@
-"""Place-recognition endurance at map scale (VERDICT r3 next #8): prove the
+"""Place-recognition endurance at map scale: prove the
 "O(1) per keyframe" claim of loop_closing/signature.py on the DEVICE path.
 
 Builds a synthetic map of N keyframes (random descriptor blocks = distinct
@@ -11,9 +11,8 @@ places, planted revisits = old blocks + bit noise), then drives the real
   (use_signature=False) on the same planted revisits.
 
 The reference's loop_closing/ is 0 bytes — this benchmarks the component
-that BEATS it. Runs on whatever backend jax picks (TPU under the driver;
-pass --cpu to force host). Results print as one JSON line and are meant to
-be committed under benchlogs/.
+that BEATS it. Runs on whatever backend jax picks (the GPU where there is
+one; pass --cpu to force host). Results print as one JSON line.
 """
 import json
 import sys

@@ -1,4 +1,4 @@
-"""Tuning experiment for the 200-frame loopy endurance run (VERDICT r1 #7):
+"""Tuning experiment for the 200-frame loopy endurance run:
 circular revisit trajectory + photometric noise + a texture blackout
 (LOST -> relocalize), loop closing ON vs OFF."""
 import os

@@ -127,37 +127,11 @@ from visual_slam_tpu.backend.ba import (  # noqa: E402
 )
 
 
-def to_sparse(problem: BAProblem, K: int) -> BASparse:
-    """Re-layout a dense (M, W) problem into K observation slots per
-    landmark (drops observations beyond K — tests pick K >= max track)."""
-    uv = np.asarray(problem.uv)
-    valid = np.asarray(problem.obs_valid)
-    M, W = valid.shape
-    s_uv = np.zeros((M, K, 2), np.float32)
-    s_pose = np.zeros((M, K), np.int32)
-    s_valid = np.zeros((M, K), bool)
-    for i in range(M):
-        js = np.nonzero(valid[i])[0][:K]
-        for k, j in enumerate(js):
-            s_uv[i, k] = uv[i, j]
-            s_pose[i, k] = j
-            s_valid[i, k] = True
-    return BASparse(
-        T_w2c=problem.T_w2c,
-        points=problem.points,
-        uv=jnp.asarray(s_uv),
-        obs_pose=jnp.asarray(s_pose),
-        obs_valid=jnp.asarray(s_valid),
-        pose_valid=problem.pose_valid,
-        pose_fixed=problem.pose_fixed,
-    )
-
-
 def test_sparse_matches_dense(rng):
     """Identical LM trajectory: the sparse layout is the same math with a
     different summation order, so poses/points must agree tightly."""
     problem, T_gt, pts_gt, f = make_ba_problem(rng, W=5, M=150, n_fixed=2)
-    sparse = to_sparse(problem, K=5)
+    sparse = BASparse.from_dense(problem, 5)
     Td, Xd, infod = bundle_adjust(problem, n_iter=15, huber=5.0 / f)
     Ts, Xs, infos = bundle_adjust_sparse(sparse, n_iter=15, huber=5.0 / f)
     np.testing.assert_allclose(np.asarray(Ts), np.asarray(Td), atol=2e-4)
@@ -173,7 +147,7 @@ def test_sparse_robust_matches_dense(rng):
     n_bad = len(uv) // 10
     uv[:n_bad, :, :] += rng.uniform(-0.2, 0.2, (n_bad, uv.shape[1], 2))
     problem = problem._replace(uv=jnp.asarray(uv))
-    sparse = to_sparse(problem, K=4)
+    sparse = BASparse.from_dense(problem, 4)
     Td, Xd, infod = bundle_adjust_robust(
         problem, n_iter=12, n_iter2=12, huber=3.0 / f
     )
@@ -195,7 +169,7 @@ def test_sparse_obs_cap_overflow_still_converges(rng):
     """K smaller than the longest track: the subset solve must still reduce
     cost and stay near GT (the pack keeps an evenly-spread subset)."""
     problem, T_gt, pts_gt, f = make_ba_problem(rng, W=6, M=150, n_fixed=2)
-    sparse = to_sparse(problem, K=3)  # tracks are up to 6 long
+    sparse = BASparse.from_dense(problem, 3)  # tracks are up to 6 long
     Ts, Xs, infos = bundle_adjust_sparse(sparse, n_iter=15, huber=5.0 / f)
     assert float(infos["cost"]) < float(infos["cost0"])
     # Half the observations dropped -> looser optimum, but still near GT.
@@ -206,7 +180,7 @@ def test_sparse_obs_cap_overflow_still_converges(rng):
 
 def test_sparse_handles_empty_slots(rng):
     problem, T_gt, pts_gt, f = make_ba_problem(rng, W=4)
-    sparse = to_sparse(problem, K=4)
+    sparse = BASparse.from_dense(problem, 4)
     s_valid = np.asarray(sparse.obs_valid).copy()
     s_valid[-20:, :] = False
     pose_valid = np.array([True, True, True, False])
@@ -258,8 +232,8 @@ def test_sparse_obs_auto_selects_by_window(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# Landmark-MINOR dense solver (backend/ba.py bundle_adjust_lm): the TPU
-# (8, 128)-tiling relowering — same math, landmark axis last.
+# Landmark-MINOR dense solver (backend/ba.py bundle_adjust_lm): the same
+# math with the landmark axis last.
 # ---------------------------------------------------------------------------
 
 from visual_slam_tpu.backend.ba import (  # noqa: E402
@@ -307,18 +281,36 @@ def test_lm_minor_fixed_pose_untouched(rng):
     np.testing.assert_array_equal(np.asarray(Tl)[1], T0[1])
 
 
-def test_lm_minor_auto_backend_gate():
-    """Default off (device A/B showed no win); 'auto' gates on TPU backend."""
-    from visual_slam_tpu.backend.optimizer import LMOptimizer
+def test_lm_minor_auto_backend_gate(monkeypatch):
+    """lm_minor is a plain opt-in: off by default (dense reference layout on
+    every backend), the landmark-minor solver only when set to True."""
+    import pytest
+
+    from visual_slam_tpu.backend import optimizer as opt_mod
     from visual_slam_tpu.camera import PinholeCamera
     from visual_slam_tpu.config import Config
 
     K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]])
     cfg = Config()
     assert cfg.optimization.lm_minor is False
-    opt = LMOptimizer(cfg, PinholeCamera(320, 240, K))
-    assert opt._use_lm_minor() is False
-    cfg.optimization.lm_minor = "auto"
-    assert opt._use_lm_minor() is False  # CPU test backend
-    cfg.optimization.lm_minor = True
-    assert opt._use_lm_minor() is True
+    opt = opt_mod.LMOptimizer(cfg, PinholeCamera(320, 240, K))
+
+    class _Stop(Exception):
+        pass
+
+    calls = []
+
+    def fake(name):
+        def solve(*a, **k):
+            calls.append(name)
+            raise _Stop
+        return solve
+
+    monkeypatch.setattr(opt, "_pack", lambda *a, **k: (None,) * 5)
+    monkeypatch.setattr(opt_mod, "bundle_adjust_robust", fake("reference"))
+    monkeypatch.setattr(opt_mod, "bundle_adjust_robust_lm", fake("lm_minor"))
+    for mode in (False, True):
+        cfg.optimization.lm_minor = mode
+        with pytest.raises(_Stop):
+            opt.solve_start([], [], 16)
+    assert calls == ["reference", "lm_minor"]

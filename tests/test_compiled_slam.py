@@ -53,7 +53,7 @@ def test_compiled_slam_trajectory(run):
 
 
 def test_guided_local_map_extends_tracking():
-    """VERDICT r1 #10: the compiled step's projection-guided local-map
+    """The compiled step's projection-guided local-map
     association must keep tracking alive through fast-motion keyframe
     transitions that reference-block brute matching alone loses (it also
     serves landmarks the reference block never saw)."""
@@ -223,9 +223,8 @@ def test_compiled_slam_devpromo_loop_closing():
 
 @pytest.mark.slow
 def test_compiled_slam_landmark_budget():
-    """config.map.max_landmarks enforced on the COMPILED path (VERDICT r4
-    #1: previously host-LocalMapping-only): the map must stay at/under
-    budget after every boundary, tracking must survive the evictions, and
+    """config.map.max_landmarks enforced on the COMPILED path: the map must
+    stay at/under budget after every boundary, tracking must survive the evictions, and
     the BA pack must stay in ONE shape bucket (optimizer.shapes_seen)."""
     rng = np.random.default_rng(42)
     frames, Ts_gt, K, world = render_sequence(rng, n_frames=17, step=0.3)

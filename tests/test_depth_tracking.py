@@ -1,4 +1,4 @@
-"""Depth-constrained tracking (VERDICT r1 #5): stereo disparity / RGB-D depth
+"""Depth-constrained tracking: stereo disparity / RGB-D depth
 as a per-frame PnP residual, so the second modality constrains pose every
 frame (the reference never uses it during tracking,
 visual_slam/tracking.py:415-444)."""

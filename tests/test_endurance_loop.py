@@ -1,4 +1,4 @@
-"""Loopy endurance run (VERDICT r1 #7): a 100-frame circular trajectory that
+"""Loopy endurance run: a 100-frame circular trajectory that
 revisits its start, with photometric noise + brightness drift and a 3-frame
 texture blackout mid-run. One run must survive LOST -> relocalize, close a
 real loop, and the loop closure must measurably beat the no-loop-closure

@@ -51,7 +51,7 @@ def test_l2_matcher_shifted(sift_feats):
 
 
 def test_gradhist_cross_view_matching():
-    """TPU-native float descriptor (ops/floatdesc.py): L2 matching across a
+    """On-device float descriptor (ops/floatdesc.py): L2 matching across a
     real viewpoint change on the rendered world."""
     from render import camera_path, make_world, render
     from visual_slam_tpu.frontend.features import GradHistFeature2D

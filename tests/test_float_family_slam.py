@@ -1,5 +1,5 @@
 """Float-descriptor family END TO END: the full host SLAM pipeline running
-on TPU-native SIFT (DoG detector + GradHist descriptors, L2-matched).
+on on-device SIFT (DoG detector + GradHist descriptors, L2-matched).
 
 The reference runs cv2.SIFT through the same SLAM machinery as ORB
 (visual_slam/feature/feature_manager.py factory -> tracking); here the

@@ -1,44 +1,10 @@
-"""TPU-lowering primitives: ops/linalg.smallest_eigvec_psd and
-ops/matching.min2 — exactness vs the jnp.linalg/lax references they
-replace (see benchlogs/q_fit_pieces.log, q_top2.log for the device wins)."""
+"""ops/matching.min2 (exact vs the lax.top_k it replaces) and
+ops/linalg.nullspace_vector (batched eigh on every backend)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from visual_slam_tpu.ops.linalg import smallest_eigvec_psd
 from visual_slam_tpu.ops.matching import min2
-
-
-def test_smallest_eigvec_psd_generic(rng):
-    B = rng.normal(size=(16, 7, 9)).astype(np.float32)
-    AtA = jnp.asarray(np.einsum("bij,bik->bjk", B, B))  # rank-7 9x9 PSD
-    x = smallest_eigvec_psd(AtA)
-    # In the (2-dim) nullspace: residual tiny relative to matrix scale.
-    r = np.linalg.norm(np.einsum("bij,bj->bi", np.asarray(AtA), np.asarray(x)), axis=-1)
-    scale = np.trace(np.asarray(AtA), axis1=-2, axis2=-1)
-    assert np.all(r < 2e-3 * scale)
-    assert np.allclose(np.linalg.norm(np.asarray(x), axis=-1), 1.0, atol=1e-5)
-
-
-def test_smallest_eigvec_psd_matches_eigh_direction(rng):
-    B = rng.normal(size=(8, 11, 12)).astype(np.float32)
-    AtA = np.einsum("bij,bik->bjk", B, B)  # rank-11 12x12, 1-dim nullspace
-    x = np.asarray(smallest_eigvec_psd(jnp.asarray(AtA)))
-    for b in range(8):
-        _, v = np.linalg.eigh(AtA[b])
-        dot = abs(float(np.dot(x[b], v[:, 0])))
-        assert dot > 0.999, dot
-
-
-def test_smallest_eigvec_psd_minimal_sample_f32_indefinite(rng):
-    """A minimal-sample Gram (rank n-1 EXACTLY) rounds indefinite in f32;
-    the shift must keep Cholesky finite (the bug that zeroed every RANSAC
-    hypothesis when the shift was 1e-7)."""
-    for _ in range(20):
-        B = (1000.0 * rng.normal(size=(8, 9))).astype(np.float32)
-        x = np.asarray(smallest_eigvec_psd(jnp.asarray(B.T @ B)))
-        assert np.all(np.isfinite(x))
-        assert abs(np.linalg.norm(x) - 1.0) < 1e-4
 
 
 def test_min2_matches_topk(rng):
@@ -55,8 +21,9 @@ def test_min2_matches_topk(rng):
 
 
 def test_nullspace_vector_cpu_is_eigh(rng):
-    """On CPU the dispatcher must return LAPACK eigh's vector bit-for-bit —
-    the contract that keeps every CPU fixture's f32 luck untouched."""
+    """nullspace_vector is eigh's smallest-eigenvalue vector bit-for-bit —
+    the contract that keeps every CPU fixture's f32 luck untouched — and
+    it is a nullvector of a rank-deficient Gram."""
     import jax.numpy as jnp
     from visual_slam_tpu.ops.linalg import nullspace_vector
 
@@ -65,3 +32,5 @@ def test_nullspace_vector_cpu_is_eigh(rng):
     x = nullspace_vector(AtA)
     ref = jnp.linalg.eigh(AtA)[1][..., :, 0]
     np.testing.assert_array_equal(np.asarray(x), np.asarray(ref))
+    r = np.linalg.norm(np.einsum("bij,bj->bi", np.asarray(AtA), np.asarray(x)), axis=-1)
+    assert np.all(r < 2e-3 * np.trace(np.asarray(AtA), axis1=-2, axis2=-1))

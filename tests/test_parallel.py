@@ -114,7 +114,7 @@ def test_frontback_pipeline_two_stage():
 
 
 def test_pipelined_vo_family_tracks_rendered_sequence():
-    """PipelinedVO (VERDICT r2 #7): the deployable front/back pipeline
+    """PipelinedVO: the deployable front/back pipeline
     family must bootstrap, track a rendered sequence in chunks through the
     2-stage pp mesh, promote keyframes with triangulation + BA, and land a
     usable trajectory."""
@@ -220,12 +220,12 @@ def test_sharded_sparse_ba_matches_single_device(rng):
     structure as the dense grid (bundle_adjust_sparse_sharded)."""
     from visual_slam_tpu.parallel.ba_sharded import bundle_adjust_sparse_sharded
     from visual_slam_tpu.backend.ba import bundle_adjust_sparse
-    from test_ba import to_sparse
+    from visual_slam_tpu.backend.ba import BASparse
 
     problem, T_gt, pts_gt, f = make_ba_problem(
         rng, W=4, M=128, noise_px=0.2, n_fixed=2
     )
-    sparse = to_sparse(problem, K=4)
+    sparse = BASparse.from_dense(problem, 4)
     T1, X1, info1 = bundle_adjust_sparse(sparse, n_iter=10, huber=5.0 / f)
     mesh = make_mesh("lm")
     T8, X8, info8 = bundle_adjust_sparse_sharded(

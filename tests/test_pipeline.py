@@ -92,7 +92,7 @@ def test_track_state_checkpoint(setup, tmp_path):
 
 def test_stereo_track_step():
     """Fused stereo step: detect both cameras + row-gated depth + depth-aware
-    PnP in ONE program (VERDICT r1 #5 'fused step has a stereo variant')."""
+    PnP in ONE program."""
     from render import stereo_pair
 
     rng = np.random.default_rng(4)

@@ -1,5 +1,5 @@
 """O(1) place recognition: global keyframe signatures + shortlist
-(loop_closing/signature.py; VERDICT r2 weak #5 — brute-force detection was
+(loop_closing/signature.py; brute-force detection was
 O(#keyframes) per keyframe)."""
 import numpy as np
 import pytest

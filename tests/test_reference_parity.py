@@ -147,7 +147,7 @@ def test_ate_parity_with_reference(tmp_path, seed, n_frames, step):
 
 @pytest.mark.parametrize("seed", [3, 42])
 def test_ate_parity_reference_hard_world(tmp_path, seed):
-    """VERDICT r2 weak #4: harder, KITTI-like fixtures — textured surfaces
+    """Harder, KITTI-like fixtures — textured surfaces
     (interior corners), occlusion clutter, photometric gain/bias drift and
     sensor noise (render.render_sequence_hard). Parameters chosen so the
     relaxed reference SURVIVES >= 2/3 of the frames (probed: 12/15 at

@@ -1,4 +1,4 @@
-"""4-arm f32-robustness gate (VERDICT r3 weak #8 / next #6).
+"""4-arm f32-robustness gate.
 
 The repo's documented #1 fragility class is f32 near-tie luck: marginal
 weak-parallax windows have near-null cost directions, so a pure

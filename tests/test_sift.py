@@ -1,4 +1,4 @@
-"""TPU-native SIFT (ops/sift.py): DoG scale-space detection, subpixel
+"""On-device SIFT (ops/sift.py): DoG scale-space detection, subpixel
 refinement, orientation, and descriptor quality — including a cv2.SIFT
 location cross-check (the component the reference delegates to cv2,
 visual_slam/feature/feature.py:53-83)."""
@@ -17,7 +17,7 @@ from test_features import textured_image
 def dog_feats():
     rng = np.random.default_rng(3)
     img = textured_image(rng, h=160, w=200)
-    det = feature_factory("sift_tpu", num_features=128, n_octaves=3)
+    det = feature_factory("sift", num_features=128, n_octaves=3)
     return img, det, det.detectAndCompute(img)
 
 
@@ -66,7 +66,7 @@ def test_rotation_matching():
     img = textured_image(rng, h=192, w=192)
     M = cv2.getRotationMatrix2D((96, 96), 30.0, 1.0)
     rot = cv2.warpAffine(np.asarray(img, np.float32), M, (192, 192))
-    det = feature_factory("sift_tpu", num_features=128, n_octaves=3)
+    det = feature_factory("sift", num_features=128, n_octaves=3)
     f1 = det.detectAndCompute(img)
     f2 = det.detectAndCompute(rot)
     res = BFMatcherL2(ratio=0.8).match(f1, f2)

@@ -27,7 +27,7 @@ MODULES = [
     "visual_slam_tpu.ops.matching",
     "visual_slam_tpu.ops.guided_matching",
     "visual_slam_tpu.ops.keypoint_filters",
-    "visual_slam_tpu.ops.pallas_kernels",
+    "visual_slam_tpu.ops.linalg",
     "visual_slam_tpu.frontend",
     "visual_slam_tpu.frontend.filters",
     "visual_slam_tpu.backend",

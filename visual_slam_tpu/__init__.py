@@ -1,38 +1,33 @@
-"""visual_slam_tpu — a TPU-native (JAX/XLA/Pallas) monocular visual SLAM
-framework with the capabilities of AntonSHBK/visual-slam-core, redesigned
-TPU-first: fixed-shape functional pipeline state, vmapped fixed-budget RANSAC,
-MXU-friendly descriptor matching, and a Levenberg-Marquardt/Schur bundle
-adjustment back-end."""
+"""visual_slam_tpu — a JAX/XLA monocular, stereo and RGB-D visual SLAM
+framework with the capabilities of AntonSHBK/visual-slam-core, redesigned for
+an accelerator: fixed-shape functional pipeline state, vmapped fixed-budget
+RANSAC, matmul-based descriptor matching, and a Levenberg-Marquardt/Schur
+bundle adjustment back-end."""
 
 __version__ = "0.1.0"
+
+import os as _os
 
 import jax as _jax
 
 # Geometry (SE(3) chains, 8-point systems, normal equations) needs true f32
-# matmuls; the TPU default would route them through bf16 MXU passes. Hot
-# large matmuls (descriptor distance) request lower precision explicitly.
+# matmuls; a GPU's default f32 matmul may run in TF32 (about three decimal
+# digits). Hot large matmuls (descriptor sampling and distances) request the
+# default precision explicitly.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
-# Persistent compilation cache: the pipeline's programs are expensive to
-# build (detect ~80 s, BA ~55 s per fresh process on the remote-relay
-# stack) and shape-stable across runs — cache serialized executables on
-# disk so every process after the first warms in seconds. Opt out with
-# VSLAM_NO_COMPCACHE=1 (e.g. when benchmarking compile time itself).
-import os as _os
-
-if not _os.environ.get("VSLAM_NO_COMPCACHE"):
-    try:
-        _cache_dir = _os.environ.get(
-            "VSLAM_COMPCACHE_DIR",
-            _os.path.join(
-                _os.path.expanduser("~"), ".cache", "visual_slam_tpu_xla"
-            ),
-        )
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # noqa: BLE001 — cache is an optimization, never fatal
-        pass
+# Persistent compilation cache: the pipeline's programs are shape-stable
+# across runs, so serialized executables are reused by every later process.
+# JAX_COMPILATION_CACHE_DIR, when set, is JAX's own setting and is left as
+# it is; otherwise the cache lives at one fixed path inside the checkout, so
+# every process run from it finds what earlier ones compiled.
+_ENV_CACHE_DIR = _os.environ.get("JAX_COMPILATION_CACHE_DIR")
+CACHE_DIR = _ENV_CACHE_DIR or _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
+)
+if not _ENV_CACHE_DIR:
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from .config import Config  # noqa: F401
 from .state import State  # noqa: F401

@@ -1,5 +1,5 @@
 """Bundle-adjustment back-end: LM + Schur solver and the optimizer facade
-(TPU replacement of the reference's visual_slam/optimization package)."""
+(device replacement of the reference's visual_slam/optimization package)."""
 
 from .ba import (  # noqa: F401
     BAProblem,

@@ -1,7 +1,7 @@
 """Levenberg-Marquardt bundle adjustment with Schur-complement landmark
-elimination, pure JAX — the centerpiece of the TPU back-end.
+elimination, pure JAX — the centerpiece of the device back-end.
 
-TPU-native replacement for the reference's TorchOptimizer
+Device replacement for the reference's TorchOptimizer
 (visual_slam/optimization/torch_optimizer.py): where the reference runs Adam
 with a per-observation Python loop (torch_optimizer.py:148-178 — its
 documented bottleneck, docs/article.md:675), this solver batches ALL
@@ -59,6 +59,30 @@ class BAProblem(NamedTuple):
     def n_points(self) -> int:
         return self.points.shape[0]
 
+    @classmethod
+    def from_dense(cls, problem: BAProblem, k_slots: int) -> "BASparse":
+        """Re-layout a dense (M, W) problem into ``k_slots`` observation
+        slots per landmark, keeping each landmark's first ``k_slots``
+        observations in keyframe order (host-side numpy)."""
+        import numpy as np
+
+        valid = np.asarray(problem.obs_valid)
+        uv = np.asarray(problem.uv)
+        M = valid.shape[0]
+        s_uv = np.zeros((M, k_slots, 2), np.float32)
+        s_pose = np.zeros((M, k_slots), np.int32)
+        s_valid = np.zeros((M, k_slots), bool)
+        for i in range(M):
+            js = np.nonzero(valid[i])[0][:k_slots]
+            s_uv[i, : len(js)] = uv[i, js]
+            s_pose[i, : len(js)] = js
+            s_valid[i, : len(js)] = True
+        return cls(
+            T_w2c=problem.T_w2c, points=problem.points, uv=jnp.asarray(s_uv),
+            obs_pose=jnp.asarray(s_pose), obs_valid=jnp.asarray(s_valid),
+            pose_valid=problem.pose_valid, pose_fixed=problem.pose_fixed,
+        )
+
 
 def _residuals_and_jacobians(T_w2c, points, uv, w):
     """Residuals r (M, W, 2), pose Jacobians Jp (M, W, 2, 6) for the left
@@ -94,9 +118,9 @@ def _residuals_and_jacobians(T_w2c, points, uv, w):
 def _inv3x3(A):
     """Closed-form cofactor inverse of batched 3x3 matrices (..., 3, 3).
 
-    ``jnp.linalg.inv`` lowers to LU with pivoting — measured 4 ms/LM-iter on
-    TPU at M=4096 landmarks, the single largest term of the whole solve.
-    The adjugate formula is exact, branch-free, and pure elementwise math;
+    ``jnp.linalg.inv`` lowers to a batched LU with pivoting, which was the
+    single largest term of the whole solve at M=4096 landmarks on earlier
+    hardware. The adjugate formula is exact, branch-free, and pure elementwise math;
     the damped V blocks are symmetric positive-definite so no pivoting is
     ever needed."""
     a = A[..., 0, 0]; b = A[..., 0, 1]; c = A[..., 0, 2]
@@ -161,7 +185,7 @@ def _solve_step(T_w2c, points, uv, w_obs, pose_free, lam, huber, axis_name=None)
     over its landmark shard, a psum over the mesh completes the reduction,
     the tiny (6W, 6W) Schur system is solved replicated, and landmark
     back-substitution stays local — one all-reduce of O(W^2) data per
-    iteration rides the ICI.
+    iteration rides the device interconnect.
     """
     M, W = uv.shape[:2]
     r, Jp, Jx, in_front = _residuals_and_jacobians(T_w2c, points, uv, w_obs > 0)
@@ -172,12 +196,9 @@ def _solve_step(T_w2c, points, uv, w_obs, pose_free, lam, huber, axis_name=None)
     Jxw = Jx * w[..., None, None]
 
     # Normal-equation blocks. Contractions over the BIG m axis stay einsums
-    # (MXU matmuls); every 2/3-wide contraction below is UNROLLED to
-    # broadcast multiply-adds — dot_general over a 3-wide axis lowers to
-    # per-m padded matmuls on TPU and was the whole W32/M4096 dense-BA
-    # cliff: 99 -> 17 ms, W64/M4096 174 -> 23 ms, identical costs
-    # (benchlogs/q_ba_fix_sparse2.log; attribution in q_ba_cliff_quick.log:
-    # T_blk/dX-class ops ~68 of ~100 ms).
+    # (matmuls); every 2/3-wide contraction below is UNROLLED to broadcast
+    # multiply-adds, which fuse — a dot_general over a 3-wide axis lowers to
+    # per-m padded matmuls (identical costs either way).
     U = jnp.einsum("mwai,mwaj->wij", Jpw, Jp)  # (W, 6, 6)
     V = jnp.einsum("mwai,mwaj->mij", Jxw, Jx)  # (M, 3, 3)
     gp = jnp.einsum("mwai,mwa->wi", Jpw, r)  # (W, 6)
@@ -225,7 +246,7 @@ def _solve_step(T_w2c, points, uv, w_obs, pose_free, lam, huber, axis_name=None)
     Sd = S.reshape(W * 6, W * 6)
     # S is symmetric positive definite (damped normal equations; fixed
     # slots carry identity rows), so Cholesky replaces LU-with-pivoting —
-    # the cheaper lowering for the per-iteration (6W, 6W) solve on TPU.
+    # the cheaper factorization for the per-iteration (6W, 6W) solve.
     L = jnp.linalg.cholesky(Sd)
     dxi = -jax.scipy.linalg.cho_solve((L, True), b.reshape(W * 6)).reshape(W, 6)
     # Back-substitute landmarks: dX = -Vinv (gx + Y^T dxi_summed).
@@ -337,15 +358,11 @@ def bundle_adjust_robust(
 
 
 # ---------------------------------------------------------------------------
-# Landmark-MINOR dense BA (TPU-layout relowering)
+# Landmark-MINOR dense BA (layout variant)
 #
 # The (M, W, 2, 6)-shaped intermediates of the solver above put tiny dims
-# (2, 6), (6, 3), (3, 3) in the two MINOR axes — exactly the axes the TPU
-# pads to (8, 128) native tiles. The honest device bisection
-# (benchlogs/q_ba_pieces3.log) measured the fused solve at ~17 GFLOP/s
-# effective (~100x below VPU speed of light), M-linear, with Cholesky and
-# the cost evaluation both free — i.e. pure layout waste. This variant runs
-# the SAME LM/Schur math with the landmark axis LAST everywhere
+# (2, 6), (6, 3), (3, 3) in the two MINOR axes, which a tiled memory layout
+# pads. This variant runs the SAME LM/Schur math with the landmark axis LAST everywhere
 # ((W, 2, M), (W, 6, 3, M), (3, 3, M), ...), so every elementwise panel and
 # every reduction contracts over a well-tiled minor axis.
 # ---------------------------------------------------------------------------
@@ -539,8 +556,8 @@ def bundle_adjust_robust_lm(
 # cost of every boundary solve once W reaches the 32/64 bucket floors.
 # The sparse layout stores K observation SLOTS per landmark (pose index +
 # measurement), so residuals/Jacobians/V/Y cost O(M K) instead of O(M W);
-# pose-indexed reductions fold a one-hot indicator into dense einsums (MXU
-# matmuls — segment_sum scatters are serial on TPU). The Schur cross term is
+# pose-indexed reductions fold a one-hot indicator into dense einsums
+# (matmuls instead of segment_sum scatters). The Schur cross term is
 # scattered to dense per-pose slots and contracted in one (W6, M3)x(M3, W6)
 # matmul, so it stays O(M W^2) like the dense solver; the win is the K-axis
 # terms and the (M, K) working set. Same LM/Schur math, same info dict.
@@ -571,6 +588,30 @@ class BASparse(NamedTuple):
     def n_points(self) -> int:
         return self.points.shape[0]
 
+    @classmethod
+    def from_dense(cls, problem: BAProblem, k_slots: int) -> "BASparse":
+        """Re-layout a dense (M, W) problem into ``k_slots`` observation
+        slots per landmark, keeping each landmark's first ``k_slots``
+        observations in keyframe order (host-side numpy)."""
+        import numpy as np
+
+        valid = np.asarray(problem.obs_valid)
+        uv = np.asarray(problem.uv)
+        M = valid.shape[0]
+        s_uv = np.zeros((M, k_slots, 2), np.float32)
+        s_pose = np.zeros((M, k_slots), np.int32)
+        s_valid = np.zeros((M, k_slots), bool)
+        for i in range(M):
+            js = np.nonzero(valid[i])[0][:k_slots]
+            s_uv[i, : len(js)] = uv[i, js]
+            s_pose[i, : len(js)] = js
+            s_valid[i, : len(js)] = True
+        return cls(
+            T_w2c=problem.T_w2c, points=problem.points, uv=jnp.asarray(s_uv),
+            obs_pose=jnp.asarray(s_pose), obs_valid=jnp.asarray(s_valid),
+            pose_valid=problem.pose_valid, pose_fixed=problem.pose_fixed,
+        )
+
 
 def _pose_onehot(obs_pose, W, dtype=jnp.float32):
     """(M, K, W) one-hot pose indicator — the gather-free access path to
@@ -582,10 +623,9 @@ def _pose_onehot(obs_pose, W, dtype=jnp.float32):
 def _residuals_and_jacobians_sparse(T_w2c, points, uv, onehot):
     """Sparse counterpart of :func:`_residuals_and_jacobians`; shapes are
     (M, K, ...). Pose blocks arrive via one-hot contraction instead of
-    ``T_w2c[obs_pose]``: the tiny unaligned gather of 3x3 blocks lowers to
-    a SERIAL per-element loop on TPU and was ~99% of the sparse solve wall
-    (9.6 s -> 0.13 s at W=32/M=4096/K=16 when every gather in the solve
-    became a one-hot matmul, benchlogs/q_ba_fix_sparse2.log)."""
+    ``T_w2c[obs_pose]``: tiny unaligned gathers of 3x3 blocks lowered to a
+    serial per-element loop on earlier hardware, while the one-hot matmul
+    is a plain contraction on any backend."""
     Rg = jnp.einsum("mkw,wab->mkab", onehot, T_w2c[:, :3, :3])  # (M, K, 3, 3)
     tg = jnp.einsum("mkw,wa->mka", onehot, T_w2c[:, :3, 3])  # (M, K, 3)
     pc = jnp.einsum("mkab,mb->mka", Rg, points) + tg
@@ -618,14 +658,11 @@ def _solve_step_sparse(
     """One LM linear solve on the sparse layout: returns (dxi, dX).
 
     GATHER-FREE: every ``[obs_pose]`` access (pose blocks, pose_free mask,
-    back-substituted dxi) is a one-hot contraction — the tiny unaligned
-    gathers lowered to a serial per-element loop on TPU and were the whole
-    9.5 s sparse cliff (73x at W=64/M=4096, q_ba_fix_sparse2.log).
-    Pose-indexed reductions (U, gp, S_cross, b) fold the same ONE-HOT
-    indicator into dense einsums instead of ``jax.ops.segment_sum``: on TPU
-    a ~1M-element segment_sum lowers to a SERIAL scatter (measured
-    11 s/solve at W=32, CLAUDE.md "TPU linear-algebra lowering"), while the
-    equivalent one-hot contraction is an MXU matmul. Landmark blocks (V, gx,
+    back-substituted dxi) is a one-hot contraction instead of a tiny
+    unaligned gather. Pose-indexed reductions (U, gp, S_cross, b) fold the
+    same ONE-HOT indicator into dense einsums instead of
+    ``jax.ops.segment_sum``, whose ~1M-element scatter can serialize, while
+    the one-hot contraction is a plain matmul. Landmark blocks (V, gx,
     back-subst) reduce locally over the K axis; 3-wide contractions are
     unrolled to broadcast multiply-adds (same relowering as the dense
     solver). With ``axis_name``, the landmark axis is sharded exactly as in
@@ -668,8 +705,8 @@ def _solve_step_sparse(
     # per-pose slots via the one-hot matmul, then contract landmarks away in
     # ONE big (W6, M3) x (M3, W6) matmul. Versus the pairwise (M, K, K)
     # form + pair segment_sum this trades O(M K^2) "ideal" FLOPs for
-    # O(M W^2) MXU FLOPs — and wins by ~1000x wall-clock on TPU because the
-    # scatter was serial (same trade as the dense solver's cross term).
+    # O(M W^2) matmul FLOPs and no scatter (same trade as the dense
+    # solver's cross term).
     Tb_w = jnp.einsum("mkil,mkw->mwil", T_blk, onehot)  # (M, W, 6, 3)
     Y_w = jnp.einsum("mkjl,mkw->mwjl", Y, onehot)  # (M, W, 6, 3)
     S_cross = jnp.einsum("muil,mvjl->uivj", Tb_w, Y_w)  # (W, 6, W, 6)
@@ -690,7 +727,7 @@ def _solve_step_sparse(
     Sd = S.reshape(W * 6, W * 6)
     # S is symmetric positive definite (damped normal equations; fixed
     # slots carry identity rows), so Cholesky replaces LU-with-pivoting —
-    # the cheaper lowering for the per-iteration (6W, 6W) solve on TPU.
+    # the cheaper factorization for the per-iteration (6W, 6W) solve.
     L = jnp.linalg.cholesky(Sd)
     dxi = -jax.scipy.linalg.cho_solve((L, True), b.reshape(W * 6)).reshape(W, 6)
     dxi_obs = jnp.einsum("mkw,wi->mki", onehot, dxi)  # gather-free dxi[obs_pose]

@@ -2,7 +2,7 @@
 
 API parity with the reference (visual_slam/feature/feature_manager.py:15-62):
 same factory names (orb, fast_orb_anms, sift, fastbrief / bf_hamming,
-bf-l2, flann) mapped onto the TPU-native implementations.
+bf-l2, flann) mapped onto the on-device JAX implementations.
 """
 from __future__ import annotations
 
@@ -24,11 +24,10 @@ _DETECTORS = {
     "fast_orb_anms": FastOrbFeature2D,  # grid top-k subsumes ANMS balancing
     "fastbrief": FastOrbFeature2D,
     "shi_tomasi_orb": ShiTomasiOrbFeature2D,
-    "sift": DoGSiftFeature2D,  # TPU-native DoG + GradHist (ops/sift.py)
-    "sift_tpu": DoGSiftFeature2D,
+    "sift": DoGSiftFeature2D,  # on-device DoG + GradHist (ops/sift.py)
     "dog_gradhist": DoGSiftFeature2D,
     "sift_cv2": SIFTFeature2D,  # host cv2 fallback (reference parity)
-    "gradhist": GradHistFeature2D,  # TPU-native float family
+    "gradhist": GradHistFeature2D,  # on-device float family
     "fast_gradhist": GradHistFeature2D,
     "shi_tomasi_gradhist": ShiTomasiGradHistFeature2D,
 }

@@ -1,10 +1,10 @@
-"""Feature detector classes over the jitted TPU front-end.
+"""Feature detector classes over the jitted device front-end.
 
 API parity with the reference detector zoo (visual_slam/feature/base.py:8-34
 ABC; feature.py:13-328 ORB/SIFT/FastBrief/FastOrbAnms): ``detect``,
 ``compute``, ``detectAndCompute``. All binary-descriptor detectors route to
-the fused Pallas/JAX pipeline (ops/detector.py); spatial balancing is the
-grid top-k built into the detector (the TPU-shaped replacement for ANMS/SSC,
+the fused JAX pipeline (ops/detector.py); spatial balancing is the grid
+top-k built into the detector (the fixed-shape replacement for ANMS/SSC,
 reference feature.py:244-328).
 """
 from __future__ import annotations
@@ -85,7 +85,7 @@ class ShiTomasiOrbFeature2D(FastOrbFeature2D):
 
 
 class GradHistFeature2D(BaseFeature2D):
-    """TPU-native float-descriptor family: FAST (or Shi-Tomasi) keypoints +
+    """On-device float-descriptor family: FAST (or Shi-Tomasi) keypoints +
     the 128-d gradient-histogram descriptor computed fully on device
     (ops/floatdesc.py), L2-matched. The SIFT-class option with no host/cv2
     dependency (the reference's float family delegates to cv2.SIFT)."""
@@ -135,7 +135,7 @@ class ShiTomasiGradHistFeature2D(GradHistFeature2D):
 
 
 class DoGSiftFeature2D(BaseFeature2D):
-    """TPU-native SIFT: DoG scale-space extrema detection + the 128-d
+    """On-device SIFT: DoG scale-space extrema detection + the 128-d
     GradHist descriptor, one jitted device program (ops/sift.py). The
     device-first counterpart of the reference's cv2.SIFT family
     (visual_slam/feature/feature.py:53-83)."""
@@ -176,7 +176,8 @@ class DoGSiftFeature2D(BaseFeature2D):
 
 class SIFTFeature2D(BaseFeature2D):
     """Float-descriptor fallback via OpenCV (host-side; reference
-    feature.py:53-83). Binary TPU detectors are the first-class path."""
+    feature.py:53-83). The binary on-device detectors are the first-class
+    path."""
 
     desc_words = 128
 

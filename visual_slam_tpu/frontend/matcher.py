@@ -1,8 +1,8 @@
-"""Matcher classes over the MXU distance kernels.
+"""Matcher classes over the matmul distance kernels.
 
 API parity with the reference matchers (visual_slam/feature/base.py:37-45 ABC;
 matcher.py:12-103 BFMatcherHamming / BFMatcherL2 / FlannMatcher). All exact
-brute-force search — on TPU one distance matmul beats approximate KD-trees at
+brute-force search — one distance matmul beats approximate KD-trees at
 these descriptor counts, so FlannMatcher is an alias of the L2 matcher (the
 reference's FLANN exists only because CPU brute force is slow).
 """
@@ -31,7 +31,7 @@ class BaseMatcher(abc.ABC):
 
 class BFMatcherHamming(BaseMatcher):
     """Binary brute-force matcher (reference matcher.py:12-40): crossCheck
-    mode or knn(2)+Lowe-ratio; one bf16 MXU matmul under the hood."""
+    mode or knn(2)+Lowe-ratio; one bf16 matmul under the hood."""
 
     def __init__(self, ratio: float = 0.75, cross_check: bool = True,
                  use_orientation: bool = False, max_distance: float = 0.0, **_: object):
@@ -62,7 +62,7 @@ def _l2_distance_matrix(d1: jnp.ndarray, d2: jnp.ndarray, v1, v2) -> jnp.ndarray
 
 class BFMatcherL2(BaseMatcher):
     """Float brute-force matcher (reference matcher.py:46-71) via
-    ||a-b||^2 = |a|^2 + |b|^2 - 2ab on the MXU."""
+    ||a-b||^2 = |a|^2 + |b|^2 - 2ab as one matmul."""
 
     def __init__(self, ratio: float = 0.75, cross_check: bool = True, **_: object):
         self.ratio = float(ratio)
@@ -82,9 +82,9 @@ class BFMatcherL2(BaseMatcher):
 class FlannMatcher(BFMatcherL2):
     """ANN matcher (reference matcher.py:77-103 is a KD-tree FLANN).
 
-    Below ``ann_threshold`` train rows: exact search (one MXU matmul beats
+    Below ``ann_threshold`` train rows: exact search (one matmul beats
     any approximate structure at SLAM block sizes — see module docstring).
-    At or above it: a Hamming IVF index (ops/ann.py — the TPU-shaped
+    At or above it: a Hamming IVF index (ops/ann.py — the fixed-shape
     analogue of the reference's KD-tree, coarse-quantize + probe instead of
     pointer-chasing), built once per train block and cached, giving the
     O(C + P*B) per-query asymptotic escape hatch for huge descriptor

@@ -27,7 +27,7 @@ class LocalHandler(BaseHandler):
         """(reference local_handler.py:28-74)
 
         Policy: while the map fits a couple of window buckets, run full-map
-        BA (every pose free — a compiled LM solve is milliseconds on TPU, so
+        BA (every pose free — a compiled LM solve is milliseconds, so
         there is no reason to accept windowing drift on small maps); switch
         to sliding-window BA with fixed out-of-window anchors at scale."""
         self._trigger_count += 1

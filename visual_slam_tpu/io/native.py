@@ -4,7 +4,7 @@ Compiled on first use with g++ (cached in native/build/). Provides:
   * ``decode_image(path)`` — PNG/PGM/PPM/BMP decode without OpenCV/PIL,
   * ``NativeDatasetSource`` — a DataSourceBase whose decode + grayscale
     conversion runs in background C++ worker threads with a bounded in-order
-    prefetch ring, so ``get_frame()`` returns immediately while the TPU is
+    prefetch ring, so ``get_frame()`` returns immediately while the device is
     busy with the previous frame (replaces the blocking cv2.imread loop of
     the reference, source.py:78-87).
 """

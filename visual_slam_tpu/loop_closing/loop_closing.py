@@ -4,9 +4,9 @@ A working implementation of the reference's declared-but-absent loop closing
 (visual_slam/loop_closing/base.py is 0 bytes; slam.py:44 sets
 ``loop_closing = None``; README.md:47 lists it as not implemented).
 
-Detection is brute-force descriptor place recognition, which is the
-TPU-shaped choice: the query keyframe's packed descriptors are matched
-against EVERY candidate keyframe in ONE batched MXU Hamming program
+Detection is brute-force descriptor place recognition, the fixed-shape
+choice: the query keyframe's packed descriptors are matched against EVERY
+candidate keyframe in ONE batched matmul Hamming program
 (``match_descriptors_batched`` — candidate blocks stacked and padded to a
 power-of-two bucket, so dispatch count is O(1) and recompiles are
 log-bounded regardless of map size). Candidates are gated to exclude the
@@ -84,8 +84,8 @@ class LoopClosing:
         # O(1)-per-keyframe place recognition: compact global signature per
         # keyframe (loop_closing/signature.py). The host-side signature
         # table shortlists candidates so the batched geometric matcher runs
-        # on a CONSTANT candidate bucket regardless of map size (cures
-        # VERDICT r2 weak #5: O(#keyframes) detection compute + cache).
+        # on a CONSTANT candidate bucket regardless of map size (instead of
+        # O(#keyframes) detection compute + cache).
         self.shortlist_size = int(
             getattr(config.loop_closing, "shortlist_size", 8) or 8
         )

@@ -7,7 +7,7 @@ README.md:47 lists global optimization as not implemented).
 Fixed-shape Gauss-Newton: N pose slots + E edge slots (padded + masked),
 residual per edge r_e = log(T_meas^-1 @ T_i @ T_j^-1) in se(3), Jacobians by
 forward-mode autodiff of the tangent-space update (6N params — the problem
-is small enough that materializing J (6E x 6N) is cheap on TPU), damped
+is small enough that materializing J (6E x 6N) is cheap), damped
 normal-equation solves with a fixed iteration count.
 """
 from __future__ import annotations

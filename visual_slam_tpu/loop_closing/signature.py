@@ -2,15 +2,15 @@
 
 The round-2 loop detector brute-matched the query keyframe against EVERY old
 keyframe — one batched dispatch, but compute and the candidate buffer grew
-linearly with map size (VERDICT r2 weak #5). This module adds the standard
-SLAM fix (a bag-of-visual-words global descriptor, the role DBoW2 plays in
-ORB-SLAM) built TPU-first:
+linearly with map size. This module adds the standard SLAM fix (a
+bag-of-visual-words global descriptor, the role DBoW2 plays in ORB-SLAM)
+built for the device:
 
 * a fixed random binary codebook of V visual words (no offline training —
   random codebooks retain enough discrimination for shortlist recall, and
   keep the framework dataset-free);
 * word assignment for all K descriptors is ONE (K, 256) x (256, V) matmul
-  on the MXU (Hamming distance via +/-1 projection), one-hot histogram,
+  (Hamming distance via +/-1 projection), one-hot histogram,
   L2 normalization — a single tiny program per keyframe;
 * place similarity is a host-side (V,) . (V, N) matvec over the signature
   table — microseconds at thousands of keyframes, no device round trip.

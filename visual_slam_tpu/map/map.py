@@ -145,7 +145,7 @@ class Map:
         ``_points`` set grows unboundedly (reference map.py:19-20) and its
         documented failure mode is optimization falling behind the growing
         map (reference docs/article.md:673-683). A fixed budget keeps every
-        BA pack inside ONE compiled shape bucket forever (VERDICT r4 #1).
+        BA pack inside ONE compiled shape bucket forever.
 
         Returns the number of landmarks evicted (0 if within budget, or if
         the protected set alone exceeds the budget — the BA pack's

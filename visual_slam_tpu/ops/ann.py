@@ -1,14 +1,14 @@
-"""Approximate nearest-neighbour Hamming matching (IVF), TPU-shaped.
+"""Approximate nearest-neighbour Hamming matching (IVF), fixed-shape.
 
 The reference's ``FlannMatcher`` is a KD-tree ANN over float-cast
 descriptors (visual_slam/feature/matcher.py:77-103) — an asymptotic escape
 hatch for descriptor sets too large to brute-force. KD-trees are pointer
-machines and do not map to the TPU; the TPU-idiomatic equivalent is an
-IVF (inverted-file) index, the FAISS coarse-quantizer pattern, built from
+machines and do not map to a fixed-shape device program; the idiomatic
+equivalent is an IVF (inverted-file) index, the FAISS coarse-quantizer pattern, built from
 fixed-shape gathers + matmuls:
 
 * build: pick ``C`` anchor descriptors, assign every database descriptor to
-  its nearest anchor (one MXU Hamming matmul), bucket them with a fixed
+  its nearest anchor (one Hamming matmul), bucket them with a fixed
   per-bucket capacity ``B`` (overflow truncates — the standard IVF recall
   trade),
 * search: queries score the ``C`` anchors (one small matmul), probe their
@@ -20,7 +20,7 @@ fixed-shape gathers + matmuls:
 Complexity per query: O(C + P*B) vs exact O(N); with C = sqrt-ish(N),
 P*B << N this is the classic IVF speedup while every shape stays static.
 
-For SLAM-sized blocks (K <= 4096) the exact MXU matcher is faster and is
+For SLAM-sized blocks (K <= 4096) the exact matmul matcher is faster and is
 the default everywhere; ``frontend.matcher.FlannMatcher`` routes to this
 module above ``ann_threshold`` database rows.
 """
@@ -135,7 +135,7 @@ def ivf_search(
     """
     Q = qdesc.shape[0]
     P = min(n_probe, index.n_clusters)
-    # Coarse stage: one small MXU matmul against the anchors.
+    # Coarse stage: one small matmul against the anchors.
     d_coarse = hamming_distance_matrix(
         qdesc, index.anchors, qvalid, jnp.ones(index.n_clusters, bool)
     )  # (Q, C)
@@ -146,15 +146,15 @@ def ivf_search(
     cand_ids = index.bucket_ids[probe]  # (Q, P, B)
 
     # Fine stage: exact Hamming on packed words — XOR + population_count,
-    # no 256-bit unpack (the gathered candidate set is small; the VPU op
-    # beats materializing (Q, P, B, 256) bit planes).
+    # no 256-bit unpack (the gathered candidate set is small; the
+    # elementwise op beats materializing (Q, P, B, 256) bit planes).
     x = jnp.bitwise_xor(qdesc[:, None, None, :], cand_desc)
     d = jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.float32)
     d = jnp.where(cand_valid & qvalid[:, None, None], d, BIG)
     d = d.reshape(Q, -1)  # (Q, P*B)
     ids = cand_ids.reshape(Q, -1)
 
-    best, second, ti_flat = min2(d)  # top_k = TPU sort network (q_top2.log)
+    best, second, ti_flat = min2(d)  # reductions, not a top_k sort
     ti = jnp.take_along_axis(ids, ti_flat[:, None], axis=1)[:, 0]
     ok = (best < BIG * 0.5) & qvalid
     if ratio > 0:

@@ -1,7 +1,7 @@
 """Two-view epipolar geometry: essential/fundamental estimation with
 fixed-budget vmapped RANSAC and cheirality-based pose recovery. Pure JAX.
 
-TPU-native replacement for cv2.findEssentialMat + cv2.recoverPose
+Device replacement for cv2.findEssentialMat + cv2.recoverPose
 (reference: visual_slam/utils/motion_estimation.py:11-50) and the
 cv2.findFundamentalMat RANSAC match filter (visual_slam/utils/matching.py:93-140).
 
@@ -61,9 +61,7 @@ def eight_point(
     ones = jnp.ones_like(u1)
     A = jnp.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, ones], axis=-1)
     AtA = (A * w[:, None]).T @ A  # (9, 9)
-    # ops/linalg.nullspace_vector: eigh on CPU; direct inverse iteration
-    # on TPU (batched eigh is data-dependently slow under the RANSAC vmap
-    # on outlier-mixing samples - ops/linalg.py, q_fit_pieces*.log).
+    # ops/linalg.nullspace_vector picks the solver per backend.
     f = nullspace_vector(AtA)
     Fn = f.reshape(3, 3)
     # Denormalize first: the similarity transforms do not preserve singular
@@ -135,7 +133,7 @@ def ransac_essential(
 
     # Per-hypothesis local optimization: minimal 8-point fits amplify noise
     # heavily, so anneal EVERY hypothesis with wide->narrow inlier refits
-    # before scoring.  This is the TPU-shaped version of LO-RANSAC — the
+    # before scoring.  This is the fixed-shape version of LO-RANSAC — the
     # local optimization is vmapped across the whole hypothesis batch.
     def local_opt(E):
         for factor in (64.0, 16.0, 4.0, 1.0):

@@ -1,13 +1,13 @@
-"""FAST-16 corner detection, fully vectorized for the TPU VPU.
+"""FAST-16 corner detection, fully vectorized.
 
-TPU-native replacement for cv2.FastFeatureDetector / cv2.ORB's detection stage
+Device replacement for cv2.FastFeatureDetector / cv2.ORB's detection stage
 (reference: visual_slam/feature/feature.py:95-99, 180-184).
 
 The classic FAST implementation is branchy and pointer-chasing; here the whole
 image is processed as 16 shifted copies (one per ring pixel), the 16
 bright/dark comparisons are packed into an int32 bitmask per pixel, and the
 "9 contiguous pixels" test becomes 8 shift-ANDs on a doubled mask — pure
-elementwise work that XLA fuses into a handful of VPU passes.  Non-max
+elementwise work that XLA fuses into a handful of passes.  Non-max
 suppression is a 3x3 max-pool comparison.
 """
 from __future__ import annotations
@@ -95,7 +95,7 @@ def shi_tomasi_scores(
 ) -> jnp.ndarray:
     """Shi-Tomasi (min-eigenvalue) corner response map.
 
-    TPU-native goodFeaturesToTrack scoring (reference delegates to cv2 via
+    On-device goodFeaturesToTrack scoring (reference delegates to cv2 via
     the ShiTomasiOrbFeature2D factory entry, visual_slam/feature/feature.py):
     Sobel gradients -> windowed structure tensor -> smaller eigenvalue
       lambda_min = (Sxx+Syy)/2 - sqrt(((Sxx-Syy)/2)^2 + Sxy^2),

@@ -1,7 +1,7 @@
-"""GradHist: a TPU-native float descriptor (SIFT-class), pure JAX.
+"""GradHist: an on-device float descriptor (SIFT-class), pure JAX.
 
 The reference's float-descriptor family delegates to cv2.SIFT (C++ host,
-visual_slam/feature/feature.py:53-83); this is the TPU-first equivalent:
+visual_slam/feature/feature.py:53-83); this is the on-device equivalent:
 a 4x4-cell x 8-orientation-bin gradient-histogram descriptor (128-d float,
 L2-matched) computed entirely on device with the same machinery style as
 rBRIEF:
@@ -38,7 +38,7 @@ N_CELLS = 4  # 4x4 spatial grid
 N_OBINS = 8  # orientation bins
 N_ROT = 30  # rotation quantization (matches rBRIEF steering)
 DESC_DIM = N_CELLS * N_CELLS * N_OBINS  # 128
-_P = 32  # patch side (matches the Pallas-aligned patch size)
+_P = 32  # patch side
 
 
 def _make_cell_weights() -> np.ndarray:
@@ -161,12 +161,10 @@ def detect_and_describe_gradhist(
         yx, resp, valid = fast_ops.top_k_grid(scores, k_l, grid=grid)
         sub = fast_ops.subpixel_offsets(scores, yx)
         blurred = pyr_ops.gaussian_blur(lvl, sigma=2.0, radius=3)
-        praw = orb_ops.extract_patches(lvl, yx)
+        ang = orb_ops.orientations(orb_ops.extract_patches(lvl, yx))
         pblur = orb_ops.extract_patches(blurred, yx)
         # pad 31x31 -> 32x32 (gradients at the pad edge are zeroed anyway)
-        praw = jnp.pad(praw, ((0, 0), (0, 1), (0, 1)), mode="edge")
         pblur = jnp.pad(pblur, ((0, 0), (0, 1), (0, 1)), mode="edge")
-        ang = orb_ops.orientations(praw)
         desc_f = gradhist_descriptors(pblur, ang)
         desc_u32 = jax.lax.bitcast_convert_type(desc_f, jnp.uint32)
         sx = W0 / Wl

@@ -4,7 +4,7 @@ The ORB-SLAM "track local map" search the reference lacks (its tracking is
 descriptor-only against the latest keyframe, SURVEY.md §3.2 note): project
 every local-map landmark into the constant-velocity predicted pose, then
 match each landmark's descriptor against only the keypoints inside a pixel
-search window. On TPU the spatial gate is a mask over the same MXU Hamming
+search window. The spatial gate is a mask over the same matmul Hamming
 matrix used everywhere else — no grids/buckets needed.
 
 Produces keypoint-slot-aligned 3D-2D candidates ready for RANSAC-PnP.
@@ -44,72 +44,46 @@ def guided_match(
     default absolute-distance gate is metric-appropriate (80 bits / 0.9 L2
     on unit-norm descriptors) when ``max_distance`` is None.
     """
-    if max_distance is None:
-        max_distance = 80.0 if is_binary_desc(lm_desc) else 0.9
-    uv, z = project_points(K, T_pred, lm_pos)
-    visible = (
-        lm_valid
-        & (z > 0.1)
-        & (uv[:, 0] >= 0) & (uv[:, 0] < width)
-        & (uv[:, 1] >= 0) & (uv[:, 1] < height)
-    )
-    from .matching import _use_pallas
-
-    if _use_pallas() and is_binary_desc(lm_desc):
-        # Fused kernel: Hamming + spatial gate + ratio test + keypoint-
-        # aligned inversion without materializing (M, Kp) in HBM — the XLA
-        # path below re-reads that matrix ~6x and measured 3.06 ms of the
-        # 4.83 ms track step (benchlogs/q_track_pieces_v2.log). Tie-break
-        # semantics identical (min distance, then min landmark index —
-        # exact for integer Hamming).
-        from .orb import unpack_bits
-        from .pallas_kernels import guided_top2_pallas
-
-        b1 = unpack_bits(lm_desc)
-        b2 = unpack_bits(kp_desc)
-        lm_idx, valid = guided_top2_pallas(
-            b1, jnp.sum(b1.astype(jnp.float32), axis=-1), visible, uv,
-            b2, jnp.sum(b2.astype(jnp.float32), axis=-1), kp_valid, kp_xy,
-            jnp.float32(radius_px), ratio=float(ratio),
-            max_distance=float(max_distance),
+    with jax.named_scope("guided_match"):
+        if max_distance is None:
+            max_distance = 80.0 if is_binary_desc(lm_desc) else 0.9
+        uv, z = project_points(K, T_pred, lm_pos)
+        visible = (
+            lm_valid
+            & (z > 0.1)
+            & (uv[:, 0] >= 0) & (uv[:, 0] < width)
+            & (uv[:, 1] >= 0) & (uv[:, 1] < height)
         )
-        valid = valid & kp_valid
+        dist = distance_matrix(lm_desc, kp_desc, visible, kp_valid)  # (M, Kp)
+        # Spatial gate: landmark's predicted pixel vs keypoint position.
+        d2 = jnp.sum((uv[:, None, :] - kp_xy[None, :, :]) ** 2, axis=-1)
+        dist = jnp.where(d2 <= radius_px * radius_px, dist, BIG)
+
+        # Best + second keypoint per landmark (ratio test), then invert to a
+        # keypoint-aligned table keeping the lowest-distance landmark per kp.
+        # (min2, not lax.top_k: three fused reduction passes instead of a sort.)
+        best, second, kp_of_lm = min2(dist)
+        ok_lm = (best < BIG * 0.5) & (best <= max_distance)
+        ok_lm &= best < ratio * second
+
+        Kp = kp_xy.shape[0]
+        d_masked = jnp.where(ok_lm, best, BIG)
+        # Keypoint-aligned inversion as dense one-hot masked mins instead of an
+        # .at[kp_of_lm].min scatter: the (M, Kp) masked reduce fuses with the
+        # distance matrix already in flight. Bit-exact with the scatter (min has
+        # no rounding).
+        onehot = kp_of_lm[:, None] == jnp.arange(Kp)[None, :]  # (M, Kp)
+        best_per_kp = jnp.min(jnp.where(onehot, d_masked[:, None], BIG), axis=0)
+        M = lm_pos.shape[0]
+        mi = jnp.arange(M)
+        winner = ok_lm & (d_masked <= best_per_kp[kp_of_lm] + 1e-6)
+        # Deterministic tie-break by landmark index.
+        lm_val = jnp.where(winner, mi, 1 << 30)
+        best_lm_per_kp = jnp.min(
+            jnp.where(onehot, lm_val[:, None], 1 << 30), axis=0
+        )
+        lm_idx = jnp.where(best_lm_per_kp < (1 << 30), best_lm_per_kp, 0).astype(jnp.int32)
+        valid = best_lm_per_kp < (1 << 30)
         pts3d = lm_pos[lm_idx]
-        return {"pts3d": pts3d, "valid": valid, "lm_idx": lm_idx,
-                "n_matches": jnp.sum(valid)}
-
-    dist = distance_matrix(lm_desc, kp_desc, visible, kp_valid)  # (M, Kp)
-    # Spatial gate: landmark's predicted pixel vs keypoint position.
-    d2 = jnp.sum((uv[:, None, :] - kp_xy[None, :, :]) ** 2, axis=-1)
-    dist = jnp.where(d2 <= radius_px * radius_px, dist, BIG)
-
-    # Best + second keypoint per landmark (ratio test), then invert to a
-    # keypoint-aligned table keeping the lowest-distance landmark per kp.
-    # (min2, not lax.top_k: the sort-network lowering costs ~4x the three
-    # fused reduction passes — benchlogs/q_top2.log.)
-    best, second, kp_of_lm = min2(dist)
-    ok_lm = (best < BIG * 0.5) & (best <= max_distance)
-    ok_lm &= best < ratio * second
-
-    Kp = kp_xy.shape[0]
-    d_masked = jnp.where(ok_lm, best, BIG)
-    # Keypoint-aligned inversion as dense one-hot masked mins: an
-    # .at[kp_of_lm].min scatter over M=4096 slots serializes on TPU (the
-    # segment_sum lesson); the (M, Kp) masked reduce is fused VPU work on
-    # an array the size of the distance matrix already in flight.
-    # Bit-exact with the scatter (min has no rounding).
-    onehot = kp_of_lm[:, None] == jnp.arange(Kp)[None, :]  # (M, Kp)
-    best_per_kp = jnp.min(jnp.where(onehot, d_masked[:, None], BIG), axis=0)
-    M = lm_pos.shape[0]
-    mi = jnp.arange(M)
-    winner = ok_lm & (d_masked <= best_per_kp[kp_of_lm] + 1e-6)
-    # Deterministic tie-break by landmark index.
-    lm_val = jnp.where(winner, mi, 1 << 30)
-    best_lm_per_kp = jnp.min(
-        jnp.where(onehot, lm_val[:, None], 1 << 30), axis=0
-    )
-    lm_idx = jnp.where(best_lm_per_kp < (1 << 30), best_lm_per_kp, 0).astype(jnp.int32)
-    valid = best_lm_per_kp < (1 << 30)
-    pts3d = lm_pos[lm_idx]
-    return {"pts3d": pts3d, "valid": valid & kp_valid, "lm_idx": lm_idx,
-            "n_matches": jnp.sum(valid & kp_valid)}
+        return {"pts3d": pts3d, "valid": valid & kp_valid, "lm_idx": lm_idx,
+                "n_matches": jnp.sum(valid & kp_valid)}

@@ -1,6 +1,6 @@
 """SO(3)/SE(3) Lie-group operations, pure JAX (jit/vmap friendly).
 
-TPU-native replacement for the reference's closed-form rotation/pose helpers
+Device replacement for the reference's closed-form rotation/pose helpers
 (reference: visual_slam/utils/geometry.py:10-190, visual_slam/map/pose.py:13-180,
 scipy Rotation usage).  Everything here is branch-free, fixed-shape, and safe to
 vmap over batches of rotations/poses.
@@ -210,9 +210,9 @@ def project_to_so3(M: jnp.ndarray) -> jnp.ndarray:
 def det3x3(M: jnp.ndarray) -> jnp.ndarray:
     """Closed-form 3x3 determinant over (..., 3, 3).
 
-    ``jnp.linalg.det`` lowers to batched LU on TPU — ~0.5 ms for a (128,
-    3, 3) batch (benchlogs/q_dlt_lowering.log) vs microseconds for this
-    elementwise cofactor expansion. Use this in any batched hot path."""
+    ``jnp.linalg.det`` lowers to a batched LU factorization; this
+    elementwise cofactor expansion fuses with its neighbours. Use this in
+    any batched hot path."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
     g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
@@ -251,10 +251,8 @@ def project_to_so3_newton(M: jnp.ndarray, iters: int = 5) -> jnp.ndarray:
     """Nearest rotation to M (det(M) > 0) by Higham-scaled Newton polar
     iteration: X <- (g X + (X^-1)^T / g) / 2 with g = |det X|^(-1/3).
 
-    Pure elementwise math (closed-form 3x3 inverse + determinant) — the
-    TPU-correct lowering of the batched projection: the SVD version costs
-    ~0.9 ms for a (128, 3, 3) batch where this costs microseconds
-    (benchlogs/q_dlt_lowering.log; agrees with SVD to ~5e-7). Quadratic
+    Pure elementwise math (closed-form 3x3 inverse + determinant) instead
+    of a batched iterative SVD (agrees with SVD to ~5e-7). Quadratic
     convergence once the singular values near 1; 5 iterations cover the
     noisy-DLT inputs RANSAC feeds it. det(M) <= 0 inputs (a reflection fit
     — a degenerate minimal sample) converge to an improper factor and
@@ -300,8 +298,8 @@ def rotmat_to_euler(R: jnp.ndarray) -> jnp.ndarray:
 
 def se3_inverse(T: jnp.ndarray) -> jnp.ndarray:
     """Closed-form rigid-transform inverse: [R t]^-1 = [R^T, -R^T t].
-    Exact for SE(3) and avoids ``jnp.linalg.inv``'s general 4x4 LU (slow
-    lowering on TPU, and pivoting noise on a matrix whose inverse is
+    Exact for SE(3) and avoids ``jnp.linalg.inv``'s general 4x4 LU (a
+    factorization per matrix, and pivoting noise on a matrix whose inverse is
     analytic). Batched over leading dims."""
     R = T[..., :3, :3]
     t = T[..., :3, 3]

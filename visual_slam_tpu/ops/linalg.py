@@ -1,105 +1,23 @@
-"""Tiny-problem linear-algebra lowerings that are TPU-shaped.
+"""Nullspace extraction for DLT-style fits.
 
-``jnp.linalg`` on small batched problems lowers to algorithms whose
-runtime on TPU is dominated by serialization or data-dependent iteration,
-not FLOPs (round-3/4 device bisections):
-
-  - ``eigh`` of a (H, 12, 12) batch is an ITERATIVE solver whose step
-    count depends on the spectrum: 0.01 ms on random PSD matrices but
-    2.4 ms on ill-conditioned DLT normal matrices at H=128
-    (benchlogs/q_fit_pieces.log vs q_dlt_lowering.log) — it was the whole
-    RANSAC-PnP fit cost.
-  - ``det``/``svd`` on (H, 3, 3) lower through LU/iterative SVD at
-    ~0.5-0.9 ms per call site (q_dlt_lowering.log); closed-form cofactor
-    expansions are exact and elementwise (ops/lie.det3x3, inv3x3,
-    project_to_so3_newton).
-
-This module holds the shared direct-method replacements.
+PnP (6-point DLT), the eight-point essential/fundamental fit and DLT
+triangulation all need the unit eigenvector of the smallest eigenvalue of a
+small PSD Gram matrix, batched over RANSAC hypotheses or points.
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 
-def smallest_eigvec_psd(
-    AtA: jnp.ndarray, iters: int = 4, shift: float = 2e-5
-) -> jnp.ndarray:
-    """Unit eigenvector of the smallest eigenvalue of a PSD ``(..., n, n)``
-    batch by inverse iteration off one Cholesky factor.
-
-    Direct method: one ``cholesky`` of ``AtA + eps*I`` (fixed op count, no
-    convergence loop — the property that makes it fast where ``eigh`` is
-    data-dependently slow) plus ``iters`` triangular solves. Convergence
-    ratio per step is ``(lam_min+eps)/(lam_2+eps)`` — for nullspace
-    extraction (DLT/eight-point fits, ``lam_min ~ 0``) a handful of
-    iterations reaches f32 roundoff. ``eps = shift * mean(trace)`` keeps
-    the factorization of a numerically semidefinite Gram matrix positive:
-    a MINIMAL-sample Gram (rank n-1 exactly) rounds indefinite by up to
-    ~1e-6 * scale in f32, so the shift must dominate that (2e-5 — a NaN
-    Cholesky here silently zeroed every RANSAC hypothesis) while staying
-    far below the lam_2 ~ 1e-2..1e-1 * scale of non-degenerate fits.
-
-    Ties/degenerate spectra (``lam_min ~ lam_2``) return a vector in the
-    near-null subspace — exactly as useful to a RANSAC minimal fit as
-    eigh's canonical choice.
-
-    The system is Jacobi-equilibrated first (``Ahat = D A D`` with
-    ``D = diag(A)^-1/2``): raw DLT normal matrices mix column scales over
-    ~9 decades, where a trace-relative shift swamps ``lam_2`` and the f32
-    factorization loses the nullspace entirely (measured: median
-    nullvector misalignment 0.26 WITHOUT equilibration, f32-exact with).
-    Nullvectors map exactly under diagonal scaling (``Ax = 0`` iff
-    ``Ahat (D^-1 x) = 0``), so the result is returned in the original
-    coordinates and renormalized.
-    """
-    n = AtA.shape[-1]
-    d = jnp.diagonal(AtA, axis1=-2, axis2=-1)  # (..., n)
-    s = 1.0 / jnp.sqrt(jnp.maximum(d, 1e-20))
-    Ah = AtA * s[..., :, None] * s[..., None, :]  # unit diagonal
-    eps = jnp.asarray(shift, AtA.dtype)
-    L = jnp.linalg.cholesky(Ah + eps * jnp.eye(n, dtype=AtA.dtype))
-    # Fixed pseudo-random start: breaks exact orthogonality to the target
-    # far better than ones(n) on structured problems, deterministically.
-    x = jnp.broadcast_to(
-        jnp.cos(jnp.arange(n, dtype=AtA.dtype) * 1.7 + 0.3), AtA.shape[:-1]
-    )
-
-    def body(x, _):
-        y = jax.scipy.linalg.cho_solve((L, True), x[..., None])[..., 0]
-        x = y / jnp.maximum(
-            jnp.linalg.norm(y, axis=-1, keepdims=True), 1e-20
-        )
-        return x, None
-
-    x, _ = jax.lax.scan(body, x, None, length=iters)
-    x = x * s  # back to the original coordinates (D^-1 hat-null direction)
-    return x / jnp.maximum(jnp.linalg.norm(x, axis=-1, keepdims=True), 1e-20)
-
-
 def nullspace_vector(AtA: jnp.ndarray) -> jnp.ndarray:
-    """Backend-dispatching smallest-eigenvector for DLT-style Gram
-    matrices (PnP/eight-point/triangulation nullspace extraction).
+    """Smallest-eigenvalue eigenvector of a batch of symmetric PSD
+    ``(..., n, n)`` Gram matrices, by batched ``eigh`` on every backend.
 
-    - CPU: ``jnp.linalg.eigh`` — LAPACK, backward-stable, f32-exact, and
-      the numerics every CPU test fixture is calibrated against.
-    - TPU: :func:`smallest_eigvec_psd` — the batched TPU eigh is an
-      iterative Jacobi whose runtime depends on the data (0.01 ms on
-      geometrically CONSISTENT minimal samples, 2.4 ms/H=128 on
-      inconsistent ones — and at RANSAC inlier rates most hypotheses mix
-      outliers, so the slow regime dominates; benchlogs/q_fit_pieces*.log
-      vs q_eigh_eq.log). Inverse iteration is direct: same cost on every
-      sample, sharp on the consistent samples that win the argmax.
-
-    The dispatch is trace-time (same pattern as matching._use_pallas);
-    the two backends' f32 numerics differ under EITHER choice, so CPU
-    fixtures stay bit-identical while the TPU path buys its speed.
+    ``eigh`` is backward-stable and the numerics every CPU fixture is
+    calibrated against. On one H100 it is also the faster solver at the
+    PnP-RANSAC shape: 128 12x12 Grams take 0.06 ms per call against
+    0.19-0.24 ms for Jacobi-equilibrated Cholesky inverse iteration, on
+    consistent and outlier-mixed samples alike (700 W card; PERF.md).
     """
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover - backend init failure
-        on_tpu = False
-    if on_tpu:
-        return smallest_eigvec_psd(AtA)
     _, vecs = jnp.linalg.eigh(AtA)
     return vecs[..., :, 0]

@@ -1,22 +1,22 @@
-"""Descriptor matching + match filter chain, pure JAX with MXU-routed
+"""Descriptor matching + match filter chain, pure JAX with matmul-routed
 Hamming distances.
 
-TPU-native replacement for cv2.BFMatcher(NORM_HAMMING)/knnMatch and the
+Device replacement for cv2.BFMatcher(NORM_HAMMING)/knnMatch and the
 reference's filter stack (visual_slam/feature/matcher.py:12-40,
 visual_slam/utils/matching.py:10-460: Lowe ratio, cross-check, orientation
 histogram, RANSAC fundamental, max-distance, unique-train).
 
 Key trick: Hamming distance between 256-bit descriptors a, b equals
 ``popcnt(a) + popcnt(b) - 2 * dot(bits(a), bits(b))`` — so the full KxK
-distance matrix is ONE bf16 matmul on the MXU (bit counts <= 256 are exact in
-bf16 with f32 accumulation) instead of a scalar XOR/popcount loop.
+distance matrix is ONE bf16 matmul (bit counts <= 256 are exact in bf16 with
+f32 accumulation, so the result is exact at any matmul precision) instead of a
+scalar XOR/popcount loop.
 
 All matchers return a fixed-shape match table aligned to the query side:
 ``train_idx (K,) int32``, ``distance (K,) float32``, ``valid (K,) bool``.
 """
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
@@ -25,20 +25,6 @@ import jax.numpy as jnp
 from .orb import unpack_bits
 
 BIG = 1e9
-
-
-def _use_pallas() -> bool:
-    """Route matching through the fused Pallas kernel on TPU (measured on
-    v5e: 2.0-2.6x at the 2048x2048 tracking shape, 6.5-7.6x at the 2048x4096
-    guided arena, 8.6-9.2x at the batched loop-detection shape — scripts/bench_matcher
-    .py). The XLA matmul path stays the reference/CPU implementation.
-    Set VSLAM_NO_PALLAS=1 to disable."""
-    if os.environ.get("VSLAM_NO_PALLAS"):
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover - backend init failure
-        return False
 
 
 def hamming_distance_matrix(
@@ -53,7 +39,8 @@ def hamming_distance_matrix(
     b2 = unpack_bits(desc2)
     pop1 = jnp.sum(b1.astype(jnp.float32), axis=-1)
     pop2 = jnp.sum(b2.astype(jnp.float32), axis=-1)
-    # The one big matmul — explicitly allowed on the MXU at default precision.
+    # The one big matmul: 0/1 bf16 operands with f32 accumulation are exact,
+    # so it may run at the fastest precision.
     dots = jax.lax.dot_general(
         b1,
         b2,
@@ -74,7 +61,7 @@ def l2_distance_matrix(
 ) -> jnp.ndarray:
     """(K1, D) x (K2, D) float descriptors (stored bitcast in the uint32
     block — the float-family convention) -> (K1, K2) float32 L2 distances.
-    Invalid rows/columns get BIG. One MXU matmul, same as Hamming."""
+    Invalid rows/columns get BIG. One matmul, same as Hamming."""
     d1 = jax.lax.bitcast_convert_type(desc1, jnp.float32)
     d2 = jax.lax.bitcast_convert_type(desc2, jnp.float32)
     n1 = jnp.sum(d1 * d1, axis=-1)
@@ -105,10 +92,8 @@ def distance_matrix(desc1, desc2, valid1, valid2) -> jnp.ndarray:
 
 def min2(dist: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """(best, second, argmin) along the last axis — ``lax.top_k(-d, 2)``
-    relowered as argmin + one masked re-min. top_k builds a sort network
-    on TPU (1.9 ms on a (2048, 2048) distance matrix); this is three fused
-    VPU reduction passes (0.48 ms), bit-identical including first-index
-    tie-breaks (benchlogs/q_top2.log)."""
+    relowered as argmin + one masked re-min: three fused reduction passes
+    instead of a sort, bit-identical including first-index tie-breaks."""
     ti = jnp.argmin(dist, axis=-1)
     best = jnp.take_along_axis(dist, ti[..., None], axis=-1)[..., 0]
     cols = jnp.arange(dist.shape[-1])
@@ -132,7 +117,7 @@ def match_nn(
 
     Returns (train_idx (K1,), distance (K1,), valid (K1,)).
     """
-    # Top-2 per query row (min2: top_k is a TPU sort network).
+    # Top-2 per query row.
     best, second, ti = min2(dist)
     ok = best < BIG * 0.5
     if ratio > 0:
@@ -149,10 +134,10 @@ def unique_train(ti: jnp.ndarray, dist: jnp.ndarray, ok: jnp.ndarray, n_train: i
     """Keep only the lowest-distance match per train index (reference
     filter_matches_unique, matching.py:308-334). Returns updated ``ok``.
 
-    Lowered as dense one-hot masked mins, not ``.at[ti].min`` scatters — a
-    scatter over 2000 slots serializes on TPU (the segment_sum lesson);
-    the (K, n_train) masked reduce is a handful of fused VPU passes.
-    Bit-exact with the scatter (min has no rounding)."""
+    Lowered as dense one-hot masked mins, not ``.at[ti].min`` scatters: the
+    (K, n_train) masked reduce is a handful of fused passes with no
+    data-dependent write order. Bit-exact with the scatter (min has no
+    rounding)."""
     d = jnp.where(ok, dist, BIG)
     onehot = ti[:, None] == jnp.arange(n_train)[None, :]  # (K, n_train)
     best_per_train = jnp.min(jnp.where(onehot, d[:, None], BIG), axis=0)
@@ -179,8 +164,7 @@ def orientation_filter(
     two_pi = 2.0 * jnp.pi
     da = jnp.mod(da, two_pi)  # [0, 2pi)
     bins = jnp.clip((da / two_pi * n_bins).astype(jnp.int32), 0, n_bins - 1)
-    # One-hot histogram (a .at[bins].add over 2000 matches is a serial TPU
-    # scatter; the (K, n_bins) sum is one fused pass — integer-exact).
+    # One-hot histogram: the (K, n_bins) sum is one fused pass, integer-exact.
     onehot = bins[:, None] == jnp.arange(n_bins)[None, :]
     hist = jnp.sum(
         jnp.where(ok[:, None] & onehot, 1, 0).astype(jnp.int32), axis=0
@@ -246,17 +230,8 @@ def match_descriptors(
     max_distance: float = 0.0,
 ) -> dict:
     """Distance matrix -> NN match -> unique-train -> optional orientation
-    filter. The fused jitted matcher used by the tracker. On TPU the
-    distance+top2+cross-check stage runs in the fused Pallas kernel
-    (ops/pallas_kernels.py) — no KxK HBM materialization."""
-    if _use_pallas() and is_binary_desc(desc1):
-        from .pallas_kernels import match_nn_pallas
-
-        ti, d, ok = match_nn_pallas(
-            desc1, desc2, valid1, valid2,
-            ratio=ratio, cross_check=cross_check, max_distance=max_distance,
-        )
-    else:
+    filter. The fused jitted matcher used by the tracker."""
+    with jax.named_scope("match_descriptors"):
         dist = distance_matrix(desc1, desc2, valid1, valid2)
         ti, d, ok = match_nn(dist, ratio=ratio, cross_check=cross_check, max_distance=max_distance)
     ok = unique_train(ti, d, ok, desc2.shape[0])
@@ -281,44 +256,14 @@ def match_descriptors_batched(
     (loop place recognition: the query keyframe against every old keyframe).
 
     Uses lax.map rather than vmap so the per-candidate (K, K) distance matrix
-    is never materialized C times at once — each candidate's Hamming matmul
-    runs sequentially on the MXU inside one compiled program, bounding VMEM/
-    HBM at one matrix while keeping host round-trips at exactly one.
+    is never materialized C times at once: each candidate's Hamming matmul
+    runs in turn inside one compiled program, bounding device memory at one
+    matrix while keeping host round-trips at exactly one.
 
     Shapes: desc_c (C, K, B), valid_c (C, K), angle_c (C, K); returns stacked
-    dict with train_idx/distance/valid (C, K) and n_matches (C,).
-
-    On TPU the whole candidate batch runs in ONE fused Pallas kernel
-    (measured 9.2x over the lax.map XLA path at C=8, K=2048). Float-family
-    descriptors (width 128, see is_binary_desc) take the lax.map L2 path.
+    dict with train_idx/distance/valid (C, K) and n_matches (C,). Float-family
+    descriptors (width 128, see is_binary_desc) take the L2 metric.
     """
-    if _use_pallas() and is_binary_desc(desc_q):
-        from .pallas_kernels import hamming_top2_batched
-
-        C, K2 = desc_c.shape[:2]
-        K1 = desc_q.shape[0]
-        b1 = unpack_bits(desc_q)
-        b2 = jax.vmap(unpack_bits)(desc_c)
-        p1 = jnp.sum(b1.astype(jnp.float32), -1)
-        p2 = jnp.sum(b2.astype(jnp.float32), -1)
-        best, second, ti, colarg = hamming_top2_batched(b1, p1, valid_q, b2, p2, valid_c)
-        ok = best < BIG * 0.5
-        if ratio > 0:
-            ok &= best < ratio * second
-        if cross_check:
-            ok &= jnp.take_along_axis(colarg, ti, axis=1) == jnp.arange(K1)[None]
-        ok = jax.vmap(lambda t, d, o: unique_train(t, d, o, K2))(ti, best, ok)
-        if use_orientation:
-            ok = jax.vmap(
-                lambda a_c, t, o: orientation_filter(angle_q, a_c, t, o, keep_bins=3)
-            )(angle_c, ti, ok)
-        return {
-            "train_idx": ti,
-            "distance": best,
-            "valid": ok,
-            "n_matches": jnp.sum(ok, axis=1),
-        }
-
     def one(cand):
         d, v, a = cand
         return match_descriptors(

@@ -1,6 +1,6 @@
 """Oriented rBRIEF descriptors, pure JAX.
 
-TPU-native replacement for cv2.ORB's orientation + descriptor stages
+Device replacement for cv2.ORB's orientation + descriptor stages
 (reference: visual_slam/feature/feature.py:21-47, 180-223): intensity-centroid
 orientation over a circular patch and a rotated 256-pair binary test pattern,
 packed into 8 uint32 words per keypoint.
@@ -57,42 +57,18 @@ def extract_patches(img: jnp.ndarray, yx: jnp.ndarray) -> jnp.ndarray:
     return jax.vmap(one)(yx)
 
 
-_MOMENT_W_NP = np.stack(
+_MOMENT_W = jnp.asarray(np.stack(
     [(_xx * (_yy**2 + _xx**2 <= RADIUS**2)).astype(np.float32).reshape(-1),
      (_yy * (_yy**2 + _xx**2 <= RADIUS**2)).astype(np.float32).reshape(-1)],
     axis=-1,
-)  # (961, 2): disk-masked x / y moment weights
-_MOMENT_W = jnp.asarray(_MOMENT_W_NP)
-
-# Index remap 31x31 -> 32x32 flattening (the Pallas patch gather returns
-# sublane-aligned 32x32 windows; position (y, x) moves from y*31+x to
-# y*32+x, padded row/col weighted zero).
-_IDX_31_IN_32 = (np.arange(PATCH * PATCH) // PATCH) * 32 + np.arange(PATCH * PATCH) % PATCH
-
-_MOMENT_W32_NP = np.zeros((32 * 32, 2), np.float32)
-_MOMENT_W32_NP[_IDX_31_IN_32] = _MOMENT_W_NP
-_MOMENT_W32 = jnp.asarray(_MOMENT_W32_NP)
-
-# (2, 32, 32) image-shaped variant for the Pallas in-kernel intensity
-# centroid. Module-level device constant: lazily building it inside a traced
-# caller would cache a tracer (observed UnexpectedTracerError).
-_MOMENT_W32_IMG = jnp.asarray(_MOMENT_W32_NP.T.reshape(2, 32, 32))
-
-
-def moment_weights32() -> jnp.ndarray:
-    """(2, 32, 32) disk-masked x/y moment weights for the Pallas in-kernel
-    intensity-centroid computation."""
-    return _MOMENT_W32_IMG
-
+))  # (961, 2): disk-masked x / y moment weights
 
 def orientations(patches: jnp.ndarray) -> jnp.ndarray:
-    """Intensity-centroid angle per patch: (K, 31, 31) or (K, 32, 32)
-    (Pallas-aligned) -> (K,) radians. One (K, P^2) x (P^2, 2) matmul instead
-    of masked reductions."""
+    """Intensity-centroid angle per patch: (K, 31, 31) -> (K,) radians. One
+    (K, 961) x (961, 2) matmul instead of masked reductions."""
     flat = patches.reshape(patches.shape[0], -1)
-    w = _MOMENT_W32 if flat.shape[1] == 32 * 32 else _MOMENT_W
     m = jax.lax.dot_general(
-        flat, w,
+        flat, _MOMENT_W,
         dimension_numbers=(((1,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,
     )  # (K, 2) = (m10, m01)
@@ -102,9 +78,8 @@ def orientations(patches: jnp.ndarray) -> jnp.ndarray:
 # Steering quantization: the pattern is pre-rotated into N_BINS discrete
 # orientations (2pi/30 = 12 degrees, the cv2.ORB quantization) and each bin's
 # bilinear sampling is baked into a dense (961 -> 512) weight matrix. Sampling
-# ALL bins for ALL patches is then ONE (K, 961) x (961, N_BINS*512) matmul on
-# the MXU, followed by a one-hot bin select — no gathers anywhere. This is
-# ~30x faster on TPU than per-keypoint bilinear gathering.
+# ALL bins for ALL patches is then ONE (K, 961) x (961, N_BINS*512) matmul,
+# followed by a one-hot bin select — no per-keypoint bilinear gathers.
 N_BINS = 30
 
 
@@ -139,28 +114,14 @@ def _make_rotated_sampling_matrices() -> np.ndarray:
 SAMPLING_NP = _make_rotated_sampling_matrices()  # (961, 30*512) float32
 
 _sampling_device = None
-_sampling_device32 = None
 
 
 def sampling_matrix() -> jnp.ndarray:
     """Device-resident copy of the rotated-BRIEF sampling matrix (uploaded
     once per process). Kept f32: a bf16 experiment showed no wall-clock gain
     (the step is not bound by this stream in practice) while bf16 sampling
-    noise flips near-tie descriptor bits on low-texture patches.
-
-    On TPU (Pallas patch gather active) the 1024-row variant is returned —
-    rows remapped to the 32x32 flattening, padded positions weighted zero.
-    The matrix SHAPE selects the patch-extraction path inside the detector,
-    so callers that thread it through jit stay consistent by construction."""
-    global _sampling_device, _sampling_device32
-    from .matching import _use_pallas
-
-    if _use_pallas():
-        if _sampling_device32 is None:
-            S32 = np.zeros((32 * 32, SAMPLING_NP.shape[1]), np.float32)
-            S32[_IDX_31_IN_32] = SAMPLING_NP
-            _sampling_device32 = jnp.asarray(S32)
-        return _sampling_device32
+    noise flips near-tie descriptor bits on low-texture patches."""
+    global _sampling_device
     if _sampling_device is None:
         _sampling_device = jnp.asarray(SAMPLING_NP)
     return _sampling_device
@@ -193,24 +154,12 @@ def descriptors(
 
 
 _sampling_stack = None
-_sampling_stack32 = None
 
 
 def sampling_stack() -> jnp.ndarray:
-    """(N_BINS, P, 512) per-bin view of the sampling matrix for the
-    grouped-matmul descriptor path (``descriptors_sorted``); P follows the
-    active patch layout like :func:`sampling_matrix`."""
-    global _sampling_stack, _sampling_stack32
-    from .matching import _use_pallas
-
-    if _use_pallas():
-        if _sampling_stack32 is None:
-            S32 = np.zeros((32 * 32, SAMPLING_NP.shape[1]), np.float32)
-            S32[_IDX_31_IN_32] = SAMPLING_NP
-            _sampling_stack32 = jnp.asarray(
-                S32.reshape(32 * 32, N_BINS, 2 * N_BITS).transpose(1, 0, 2).copy()
-            )
-        return _sampling_stack32
+    """(N_BINS, 961, 512) per-bin view of the sampling matrix for the
+    grouped-matmul descriptor path (``descriptors_sorted``)."""
+    global _sampling_stack
     if _sampling_stack is None:
         _sampling_stack = jnp.asarray(
             SAMPLING_NP.reshape(PATCH * PATCH, N_BINS, 2 * N_BITS)
@@ -250,8 +199,8 @@ def descriptors_sorted(
     uint32 in SORTED order, order (K,) the sort permutation).
 
     The dense path (:func:`descriptors`) computes ALL ``N_BINS`` rotations
-    for every keypoint — a (K, P) x (P, N_BINS*512) matmul, ~30x redundant
-    (VERDICT r2 weak #6). Here keypoints are sorted by orientation bin and
+    for every keypoint — a (K, P) x (P, N_BINS*512) matmul, ~30x redundant.
+    Here keypoints are sorted by orientation bin and
     ``jax.lax.ragged_dot`` (the grouped/MoE matmul primitive) applies each
     bin's (P, 512) matrix to exactly its own rows — no per-bin capacity, no
     overflow, 1/N_BINS the FLOPs. The caller permutes ALL Features fields
@@ -278,9 +227,9 @@ def descriptors_sorted(
 
 
 def unpack_bits(packed: jnp.ndarray, dtype=jnp.bfloat16) -> jnp.ndarray:
-    """(K, 8) uint32 -> (K, 256) 0/1 in ``dtype`` (bf16 feeds the MXU
+    """(K, 8) uint32 -> (K, 256) 0/1 in ``dtype`` (bf16 feeds the
     Hamming-distance matmul; integers <= 256 are exact in bf16's 8-bit
-    mantissa and the MXU accumulates in f32)."""
+    mantissa and the matmul accumulates in f32)."""
     shifts = jnp.arange(32, dtype=jnp.uint32)[None, None, :]
     bits = (packed[..., None] >> shifts) & jnp.uint32(1)
     return bits.reshape(*packed.shape[:-1], N_BITS).astype(dtype)

@@ -1,7 +1,7 @@
 """Perspective-n-Point pose estimation: vmapped fixed-budget RANSAC over
 DLT hypotheses + Gauss-Newton SE(3) refinement. Pure JAX.
 
-TPU-native replacement for cv2.solvePnPRansac / cv2.solvePnP
+Device replacement for cv2.solvePnPRansac / cv2.solvePnP
 (reference: visual_slam/utils/motion_estimation.py:57-132, used by
 Tracking._optimize_pose_mono, tracking.py:332-413).
 
@@ -44,12 +44,8 @@ def pnp_dlt(
     A = jnp.concatenate([r1, r2], axis=0)  # (2N, 12)
     ww = jnp.concatenate([w, w], axis=0)
     AtA = (A * ww[:, None]).T @ A
-    # Nullspace via ops/linalg.nullspace_vector: eigh on CPU, equilibrated
-    # Cholesky inverse iteration on TPU, where batched eigh on the
-    # outlier-mixing (geometrically inconsistent) samples RANSAC mostly
-    # draws is data-dependently slow — 2.4 ms at H=128, the entire fit
-    # cost (benchlogs/q_fit_pieces*.log, q_pnp_pieces_v2.log: 3.0 -> 1.1
-    # ms full solve).
+    # Nullspace via ops/linalg.nullspace_vector, which picks the solver per
+    # backend (see there).
     p = nullspace_vector(AtA)
     P = p.reshape(3, 4)
     M = P[:, :3]

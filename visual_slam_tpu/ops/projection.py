@@ -1,6 +1,6 @@
 """Camera projection math, pure JAX.
 
-TPU-native replacement for the reference's numba camera kernels
+Device replacement for the reference's numba camera kernels
 (reference: visual_slam/utils/camera.py:20-239, visual_slam/utils/geometry.py:87-100).
 All functions are fixed-shape, jit/vmap friendly, and operate on batched point
 arrays ``(..., N, 2|3)`` with intrinsics ``K (3,3)`` / distortion ``dist (5,)``

@@ -1,6 +1,6 @@
 """Image pyramid + Gaussian smoothing, pure JAX.
 
-TPU-native replacement for the image-pyramid stage inside cv2.ORB
+Device replacement for the image-pyramid stage inside cv2.ORB
 (reference: visual_slam/feature/feature.py:21-26 — nlevels=8,
 scale_factor=1.2 defaults).  Each pyramid level has a static shape, so the
 whole multi-scale front-end compiles once per input resolution.
@@ -20,7 +20,7 @@ def gaussian_kernel1d(sigma: float, radius: int) -> jnp.ndarray:
 
 def gaussian_blur(img: jnp.ndarray, sigma: float = 2.0, radius: int = 3) -> jnp.ndarray:
     """Separable Gaussian blur via shifted-slice accumulation (no conv op —
-    2*(2r+1) shifted adds that XLA fuses into VPU passes).
+    2*(2r+1) shifted adds that XLA fuses into elementwise passes).
 
     Matches the pre-BRIEF smoothing OpenCV applies (7x7, sigma=2)."""
     k = gaussian_kernel1d(sigma, radius)

@@ -1,12 +1,12 @@
-"""TPU-native SIFT: DoG scale-space detector + GradHist descriptor, pure JAX.
+"""On-device SIFT: DoG scale-space detector + GradHist descriptor, pure JAX.
 
 The reference ships cv2.SIFT as a first-class float-feature family
 (visual_slam/feature/feature.py:53-83 — host C++, dynamic keypoint counts).
-This is the device-native equivalent, designed for the MXU/VPU rather than
-translated:
+This is the device-native equivalent, designed for fixed-shape matmuls and
+fused elementwise passes rather than translated:
 
   * Gaussian octaves by incremental separable blurs (shifted-slice adds XLA
-    fuses into VPU passes — no conv op, no host round trips),
+    fuses — no conv op, no host round trips),
   * difference-of-Gaussians planes, 26-neighbour extrema as ONE 3x3x3
     ``reduce_window`` max/min over the plane-stacked DoG volume,
   * dense contrast + Hessian edge rejection BEFORE selection (elementwise;
@@ -66,7 +66,7 @@ def _octave_stack(base: jnp.ndarray, n_scales: int) -> jnp.ndarray:
 def _inv3x3_cofactor(A: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Batched closed-form 3x3 inverse (adjugate / det) + the determinant.
     Same rationale as backend/ba.py:_inv3x3 — ``jnp.linalg.inv`` lowers to a
-    serial LU-with-pivoting loop on TPU."""
+    batched LU with pivoting."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -184,7 +184,7 @@ def detect_and_describe_sift(
     grid: int = 8,
     edge_margin: int = 16,
 ) -> Features:
-    """Full TPU-native SIFT detect+describe as one jitted program.
+    """Full on-device SIFT detect+describe as one jitted program.
 
     ``img`` is (H, W) grayscale in [0, 255]; returns the standard padded
     ``Features`` block with float descriptors bitcast to uint32

@@ -1,6 +1,6 @@
 """Per-frame stereo / RGB-D depth measurement ops. Pure JAX, fixed shapes.
 
-TPU-native replacement for the reference's per-keyframe Python stereo loop
+Device replacement for the reference's per-keyframe Python stereo loop
 (reference triangulate_stereo_points, visual_slam/utils/motion_estimation.py:
 400-437, and the rectified row/disparity match filter, matching.py:192-228):
 one Hamming matmul over the left/right feature blocks with the epipolar gate
@@ -57,7 +57,7 @@ def stereo_feature_depths(
     gate = (dv <= row_tolerance) & (disp > min_disparity) & (disp < max_disparity)
     d = jnp.where(gate, d, BIG)
 
-    best, second, ri = min2(d)  # top_k is a TPU sort network (q_top2.log)
+    best, second, ri = min2(d)  # reductions, not a top_k sort
     ok = best < BIG * 0.5
     if ratio > 0:
         ok &= best < ratio * second

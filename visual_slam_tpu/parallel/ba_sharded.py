@@ -4,8 +4,8 @@ The Schur-complement structure of BA is naturally model-parallel in the
 landmark dimension: each device owns a shard of landmarks + their
 observations, builds partial pose-blocks, and one psum of O((6W)^2) data per
 LM iteration completes the normal equations — the reduced (6W, 6W) solve is
-replicated (tiny), back-substitution is local. Collectives ride the ICI via
-shard_map; this is the scale-out path when windows outgrow one chip
+replicated (tiny), back-substitution is local. Collectives ride the device
+interconnect via shard_map; this is the scale-out path when windows outgrow one chip
 (SURVEY.md §2c TP row).
 """
 from __future__ import annotations

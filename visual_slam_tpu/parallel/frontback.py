@@ -1,11 +1,12 @@
 """Pipeline-parallel front-end/back-end split over a 2-stage device mesh.
 
 The reference runs tracking and optimization in separate HOST threads
-(visual_slam/slam.py + handlers, timer-driven); the TPU-native equivalent is
+(visual_slam/slam.py + handlers, timer-driven); the device equivalent is
 a DEVICE pipeline: stage 0 (front-end) runs detection + descriptor matching
 for frame t while stage 1 (back-end) runs the robust pose solve for frame
 t-1 — concurrently, on different chips of a ``pp`` mesh axis, exchanging the
-fixed-shape 3D-2D candidate payload over ICI with one ``ppermute`` per frame.
+fixed-shape 3D-2D candidate payload over the device interconnect with one
+``ppermute`` per frame.
 The whole T-frame loop is ONE jitted ``shard_map`` program (lax.scan), so
 the pipeline never returns to the host between frames.
 

@@ -1,8 +1,9 @@
 """Tracing / profiling subsystem.
 
 New capability — the reference has none (SURVEY.md §5 tracing: "none").
-Provides per-stage wall-clock timers with summary statistics and a
-jax.profiler trace context for device-level inspection.
+Provides per-stage wall-clock timers with summary statistics, a
+jax.profiler trace context for device-level inspection, XLA's FLOP count of
+a compiled call, and the GPU's name and power limit.
 """
 from __future__ import annotations
 
@@ -79,19 +80,12 @@ def device_trace(log_dir: str):
         jax.profiler.stop_trace()
 
 
-# TPU v5e peak: 197 TFLOP/s bf16 (MFU vs this peak UNDER-estimates the
-# fp32-precision geometry paths — the package forces
-# jax_default_matmul_precision=highest — but is a stable roofline).
-TPU_V5E_PEAK_FLOPS = 197e12
-
-
 def flops_of(jitted, *args, **kwargs) -> float | None:
     """XLA-cost-model FLOPs of one call of a jitted function (AOT
     ``lower().compile().cost_analysis()``). Returns None when the backend
     doesn't report a cost model. Static keyword args pass through ``kwargs``.
-
-    FLOP/MFU accounting helper (VERDICT r3 weak #6 — wall-clock alone says
-    nothing about distance from roofline)."""
+    Wall-clock alone says nothing about distance from roofline; this is the
+    operation count to divide by it."""
     try:
         ca = jitted.lower(*args, **kwargs).compile().cost_analysis()
         if isinstance(ca, (list, tuple)):
@@ -102,12 +96,19 @@ def flops_of(jitted, *args, **kwargs) -> float | None:
         return None
 
 
-def mfu(flops: float | None, seconds: float,
-        peak_flops: float = TPU_V5E_PEAK_FLOPS) -> float | None:
-    """Model-FLOP utilization (percent) of one call taking ``seconds``."""
-    if flops is None or seconds <= 0:
-        return None
-    return 100.0 * flops / seconds / peak_flops
+def gpu_name_and_power_limit() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them, e.g.
+    ``"NVIDIA H100 80GB HBM3, 700.00 W"``. A card set below its maximum
+    power runs slower under load, so every time taken on it is reported
+    beside this line. One line per card, joined by ``"; "``."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return "; ".join(line.strip() for line in out.splitlines() if line.strip())
 
 
 GLOBAL_TIMER = StageTimer()
